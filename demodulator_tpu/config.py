@@ -1,4 +1,4 @@
-"""Configuration for the TPU demodulator framework.
+"""Configuration for the demodulator framework.
 
 ``DemodConfig`` mirrors the reference's ``consumerArgs`` (include/matrix.h:43-57)
 plus its packed mode byte (src/main.c:112, decoded at src/matrix.c:194-231),
@@ -18,6 +18,26 @@ import dataclasses
 from typing import Optional
 
 DEFAULT_BUF_SIZE = 262144  # include/matrix.h:37-39
+
+# Seconds of input per device block for the --wbfm and --bank families when
+# --block-seconds is not given, by JAX backend.  "cpu" keeps blocks small so
+# the tests run fast; "gpu" comes from a block-duration sweep on an H100
+# (PERF.md, Findings).  Any other backend has no default.
+BLOCK_SECONDS = {
+    "cpu": {"wbfm": 0.1, "bank": 0.01},
+    "gpu": {"wbfm": 1.0, "bank": 0.25},
+}
+
+
+def default_block_seconds(family: str) -> float:
+    """Default device block duration for ``family`` ("wbfm" | "bank") on
+    the current JAX backend; raises ValueError on a backend without one."""
+    import jax
+    plat = jax.default_backend()
+    if plat not in BLOCK_SECONDS:
+        raise ValueError(f"no default block duration for backend {plat!r}; "
+                         "pass --block-seconds")
+    return BLOCK_SECONDS[plat][family]
 
 
 @dataclasses.dataclass

@@ -7,7 +7,7 @@ pipeline construction on the host in ``np.longdouble`` (x87 80-bit on
 x86-64 Linux, matching the reference's ``LREAL = long double``), and the
 result is cast down to the compute dtype exactly once — mirroring
 src/matrix.c:75-79.  The coefficients then become jit-time constants of the
-TPU pipeline.
+device pipeline.
 
 Design modes (reference src/matrix.c:48-73):
     0 — lowpass Butterworth

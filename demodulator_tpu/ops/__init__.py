@@ -1,5 +1,5 @@
-"""TPU op library: conditioning, discriminator, filter extraction/apply,
-polyphase resampling, and the fused Pallas kernels."""
+"""Op library: conditioning, discriminator, filter extraction/apply and
+polyphase resampling, in plain jax.numpy/lax."""
 from .conditioning import shift_origin, normalize_input, correct_iq
 from .demod import fm_demod, atan2_fast
 from .fir_apply import JRealFir, JCplxFir

@@ -1,4 +1,4 @@
-"""Input-conditioning kernels (jnp, TPU-friendly).
+"""Input-conditioning kernels (jnp).
 
 Vectorized equivalents of the reference's conditioning family
 (src/matrix.c:82-157).  All operate on the trailing axis and broadcast over
@@ -20,18 +20,14 @@ __all__ = ["shift_origin", "normalize_input", "correct_iq", "split_iq",
 def split_iq(raw: jax.Array, dtype=jnp.float32, kind: str = "shift"):
     """Deinterleave + condition uint8 IQ: [..., 2T] → (I [..., T], Q [..., T]).
 
-    Strided slices (``raw[0::2]``) lower to XLA GATHER ops on TPU — measured
-    876 µs per 123k-complex-sample block on v5e, dominating the channel-bank
-    step — while a bitcast to uint16 plus byte shifts is elementwise and
-    effectively free.  Little-endian byte order puts the first (I) byte in
-    the low half, the same convention the fused NBFM kernel's u32 bitcast
-    relies on (pinned against the C binary by the golden tests).
+    A bitcast to uint16 plus byte shifts is elementwise, where strided
+    slices (``raw[0::2]``) may lower to gathers.  Little-endian byte order
+    puts the first (I) byte in the low half (pinned against the C binary by
+    the golden tests).
 
-    The bitcast is free only on a host-created buffer: when ``raw`` is a
-    device-side dynamic slice the u8→u16 retile lowers to a ~400 µs copy
-    per 384k-sample block (measured v5e).  Callers that can view the bytes
-    as uint16 host-side (numpy ``.view`` is zero-copy) should use
-    :func:`split_iq_u16` directly.
+    Callers that can view the bytes as uint16 host-side (numpy ``.view`` is
+    zero-copy) should use :func:`split_iq_u16` directly, so the device never
+    repacks bytes.
     """
     *lead, n2 = raw.shape
     u16 = jax.lax.bitcast_convert_type(
@@ -116,7 +112,7 @@ def _geometric_prefix(s: jax.Array, a: float, off: jax.Array, dtype):
     full-size intermediate passes (~17 HBM round-trips for 64 Ki steps);
     instead the scan is blocked into 128-step chunks: the within-chunk
     prefixes are ONE matmul with a lower-triangular geometric Toeplitz
-    matrix (MXU work, contraction 128), and only the n/128 chunk summaries
+    matrix (matmul work, contraction 128), and only the n/128 chunk summaries
     see an associative_scan.  Exact in real arithmetic; f32 rounding
     differs from the sequential order by ~1e-7 relative (the recurrence is
     contracting).

@@ -1,4 +1,4 @@
-"""Quadrature FM discriminator (jnp, TPU-friendly).
+"""Quadrature FM discriminator (jnp).
 
 Equivalent of fmDemod (src/matrix.c:159-176): for each non-overlapping pair
 of complex samples (a+bi, c+di):
@@ -6,8 +6,8 @@ of complex samples (a+bi, c+di):
     zr = a*c + b*d ;  zj = -a*d + b*c ;  out = atan2(zj, zr), NaN → 0
 
 decimating 2 complex → 1 real.  ``fast=True`` swaps XLA's atan2 for an odd
-polynomial approximation (max abs error ≈ 2e-7 rad — far below the 60 dB
-acceptance bar), which avoids the transcendental unit and fuses better.
+polynomial approximation (max abs error ≈ 2.5e-6 rad — far below the 60 dB
+acceptance bar).
 """
 from __future__ import annotations
 
@@ -16,26 +16,10 @@ import jax.numpy as jnp
 
 __all__ = ["fm_demod", "fm_demod_split", "atan2_fast"]
 
-# least-squares fit on Chebyshev nodes of (atan(z) - z)/z^3 in u = z^2 on
-# [0, 1]; max abs error of the full approximation ~1e-8 rad (f64), bounded by
-# f32 rounding (~1e-7) in practice.  Verified against jnp.arctan2 in tests.
-_ATAN_COEFFS = (
-    -3.3333331954e-01,
-    1.9999766157e-01,
-    -1.4279113133e-01,
-    1.1038008221e-01,
-    -8.6732173319e-02,
-    6.2844487678e-02,
-    -3.6271120349e-02,
-    1.3750824816e-02,
-    -2.4471584023e-03,
-)
-
 # --fast-atan2 poly: 6-term minimax fit of (atan z − z)/z³ on z ∈ [0, 1]
 # (weighted-LSQ Remez refinement, host float64).  Max error 2.52e-6 rad —
 # well under the 5e-6 unit-test bar and ~50 dB above the 60 dB acceptance
-# SNR — and 3 FMAs shorter than the ~1-ULP default poly above (measured
-# ~11% off the fused kernel's step time on v5e).
+# SNR.
 _ATAN_COEFFS_FAST = (
     -3.3329847272e-01,
     1.9890088755e-01,
@@ -47,7 +31,7 @@ _ATAN_COEFFS_FAST = (
 
 
 def atan2_fast(y: jax.Array, x: jax.Array) -> jax.Array:
-    """Polynomial atan2 on the VPU: octant reduction + odd poly on [0,1].
+    """Polynomial atan2: octant reduction + odd poly on [0,1].
 
     Zero handling matches C99 atan2f (what the reference calls,
     src/matrix.c:170-174): the quadrant fixups use signbit, not `< 0`, so
@@ -56,12 +40,10 @@ def atan2_fast(y: jax.Array, x: jax.Array) -> jax.Array:
     there (an earlier bug) cost ~π-sized glitches on DC-centered captures.
 
     Uses the short _ATAN_COEFFS_FAST poly (max error 2.52e-6 rad): this IS
-    the --fast-atan2 contract, and the fused kernel's precise=False branch
-    evaluates the identical polynomial so the two fast paths agree
-    bit-for-bit in interpret mode.
+    the --fast-atan2 contract.
 
-    Coefficients are cast to f32 explicitly so the same function lowers
-    under Mosaic (python scalars otherwise widen under x64).
+    Coefficients are cast to f32 explicitly (python scalars otherwise widen
+    under x64).
     """
     f32 = jnp.float32
     ax = jnp.abs(x)
@@ -96,11 +78,9 @@ def fm_demod_split(ei: jax.Array, eq: jax.Array, oi: jax.Array,
     its I/Q), ``odd = x[2k+1]`` (oi/oq), any common shape → that shape.
 
     Same math as :func:`fm_demod` on the interleaved stream — arg(conj(
-    even)·odd), C99 corner handling via atan2 — but without the pair
-    deinterleave, which is a stride-4 lane gather XLA:TPU lowers
-    catastrophically on long 1-D inputs (~1.6 ms per 480k samples, >10×
-    the rest of the WBFM chain, measured v5e).  Producers split for free
-    in the decimator's tap matrices: :meth:`ops.resample.PolyResampler
+    even)·odd), C99 corner handling via atan2 — but without the stride-4
+    pair deinterleave of a long 1-D stream.  Producers split for free in
+    the decimator's tap matrices: :meth:`ops.resample.PolyResampler
     .framed2`."""
     zr = ei * oi + eq * oq
     zj = eq * oi - ei * oq

@@ -20,7 +20,7 @@ golden model (demodulator_tpu.oracle.ops) with batched impulses in float64
 and verifies the recovered structure against the oracle on held-out random
 inputs.  The result is mathematically the SAME linear map the C code
 computes, evaluated as conv + two tiny matmuls — embarrassingly parallel,
-VPU/MXU-friendly, no lax.scan.
+elementwise and matmul work, no lax.scan.
 
 Math note: exactness is in real arithmetic; float32 evaluation order differs
 from C (≈1e-7 relative, ~140 dB SNR — far beyond the 60 dB acceptance bar).

@@ -1,15 +1,15 @@
-"""Polyphase rational resampler (TPU-native, MXU-mapped).
+"""Polyphase rational resampler (banded matmuls).
 
 The reference has no resampler (`-S` only normalizes filter cutoffs,
 src/matrix.c:34; SURVEY.md §1 fact 2) — this is the framework extension
 behind BASELINE config 5 (WBFM: 2.4 Msps → 48 kHz audio).
 
 Design (host, float64): windowed-sinc lowpass under a Kaiser window.
-Application (device): L-fold upsample → FIR → M-fold decimate expressed as a
-single ``lax.conv_general_dilated`` with ``lhs_dilation=(L,)`` and
-``window_strides=(M,)`` — XLA lowers strided/dilated 1-D convolution onto
-the MXU, so the whole upfirdn is one systolic pass instead of the
-gather/scatter a CPU polyphase implementation needs.
+Application (device): for L == 1 (decimation and plain FIR) a banded-
+Toeplitz chunked matmul (see PolyResampler.__init__); for L > 1 the
+L-fold upsample → FIR → M-fold decimate is a single
+``lax.conv_general_dilated`` with ``lhs_dilation=(L,)`` and
+``window_strides=(M,)``.
 
 Streaming: blocks are glued with an input-side history of
 ``ceil((K-1)/L)`` samples (overlap-save).  Block length T must satisfy
@@ -33,7 +33,7 @@ def kaiser_lowpass(num_taps: int, cutoff: float, fs: float,
     """Linear-phase lowpass: sinc(2·fc/fs) × Kaiser(beta), unit DC gain.
     Host-side float64 design (like the reference's startup-time LREAL filter
     design, src/filter.c:142-210 — ours is FIR because the application is a
-    stationary MXU conv, not a biquad recurrence)."""
+    stationary matmul, not a biquad recurrence)."""
     if num_taps % 2 == 0:
         num_taps += 1  # symmetric, integer group delay
     n = np.arange(num_taps, dtype=np.float64) - (num_taps - 1) / 2
@@ -80,18 +80,16 @@ class PolyResampler:
 
     def __init__(self, L: int, M: int, taps: np.ndarray,
                  dtype=jnp.float32, precision=jax.lax.Precision.HIGHEST):
-        """precision: MXU dot precision for the banded-matmul path.
-        HIGHEST (6-pass, ~f32 exact) by default; callers whose stopband
-        target is ≤ ~100 dB can pass HIGH (3-pass bf16, ~1e-6 rel error)
-        for ~2x on the dot-bound stages.
+        """precision: dot precision (a lax.Precision or a
+        lax.DotAlgorithmPreset) of the banded matmuls and of the L > 1
+        convolution; HIGHEST (exact f32) by default.
 
         ``precision="split2_bf16"`` (L == 1 banded path only): 2-pass
         operand-split dots for inputs EXACTLY representable in bf16 — the
         conditioned uint8 signal is integers in [-128, 127] (8 significand
         bits suffice), so casting the signal operand is lossless and only
         the taps split hi+lo; tap error ~2^-17 rel (~-100 dB stopband
-        perturbation).  6 → 2 MXU passes: measured 107 → 36 µs on the
-        WBFM channel decimator (v5e, docs/PERF_EXTENSIONS.md r5)."""
+        perturbation); two bf16 dots with f32 accumulation."""
         self.precision = precision
         self._split2 = precision == "split2_bf16"
         g = math.gcd(L, M)
@@ -112,14 +110,9 @@ class PolyResampler:
             # 128 (one lane row each) makes every chunk one real matmul:
             #     y[c, :] = window[c, :] @ G,   window[c] = xc[c·128·M : +W]
             # with W = (P+127)·M and G the [W, 128] banded tap matrix —
-            # large-contraction MXU work.  The alternatives both lose badly
-            # on TPU: lax.conv_general_dilated on long 1-D signals compiles
-            # pathologically slowly (~minutes), and P shifted
-            # slice+einsum(M) steps lower to VPU multiply-reduce chains
-            # plus a relayout copy per shift (measured 10+ ms per WBFM
-            # block vs ~0.5 ms for this form).  FLOP overhead of the band's
-            # zeros is (P+127)/128 ≈ 1–2×, paid on the MXU where it's free
-            # relative to the VPU alternative.
+            # large-contraction matmul work, in place of P shifted
+            # slice+einsum(M) steps with a copy per shift.  FLOP overhead
+            # of the band's zeros is (P+127)/128 ≈ 1–2×.
             P = -(-K // self.M)
             hp = np.zeros(P * self.M, np.float64)
             hp[:K] = taps
@@ -232,8 +225,7 @@ class PolyResampler:
         """Layout-friendly L==1 entry: x pre-framed as [..., R, stride]
         (a host/natural reshape of [..., R·stride]; stride = chunk·M), so
         no device-side flat→framed relayout of the full-rate signal is ever
-        paid — on TPU that relayout costs more than the dots (measured
-        ~1.5 ms of the mixer-path channel bank's ~2.1 ms step).
+        paid.
 
         Returns (y [..., C, chunk] with C = R·stride/(chunk·M) = R, and
         new_hist [..., hist_len]).  Numerically identical to __call__ on
@@ -268,10 +260,8 @@ class PolyResampler:
         (every other column of each G'_k), so the two half-width matmuls
         cost exactly one full-width one.  This exists for the quadrature
         discriminator, whose conj-product pairs consecutive decimator
-        outputs: deinterleaving the flat stream on device is a stride-2
-        lane gather XLA:TPU lowers catastrophically (~1.6 ms per 480k
-        samples, >10× the whole rest of the WBFM chain — measured v5e),
-        while the column-split costs nothing."""
+        outputs: the column split replaces a stride-2 deinterleave of the
+        flat stream on device."""
         assert self.kernel is None and self.L == 1
         assert self.chunk % 2 == 0
         stride, s, hr, mats, mats64 = self._framed_geometry()
@@ -316,7 +306,7 @@ class PolyResampler:
             # OUTPUTS (tiny [C+s, 128] tensors) avoids building overlapping
             # windows of the big input — the concat-of-slices alternative
             # pays several relayout copies of the whole signal; this form
-            # pays exactly one (the reshape) plus s MXU dots.
+            # pays exactly one (the reshape) plus s dots.
             M, chunk, s = self.M, self.chunk, len(self.gmats)
             stride = chunk * M
             C = -(-Tout // chunk)
@@ -340,6 +330,7 @@ class PolyResampler:
             padding=[(0, hi)],
             lhs_dilation=(self.L,),
             dimension_numbers=("NCW", "OIW", "NCW"),
+            precision=self.precision,
             preferred_element_type=self.dtype,
         )
         y = out.reshape(*lead, -1)[..., :Tout]

@@ -5,7 +5,7 @@ floating-point order, the corresponding C routine in the reference
 (src/matrix.c, src/filter.c).  It is intentionally *slow* (Python loops for
 the sequential recurrences) and exists for three purposes:
 
-  1. test oracle — byte/SNR comparison target for the TPU pipeline,
+  1. test oracle — byte/SNR comparison target for the JAX pipeline,
      cross-validated against the compiled C binary;
   2. FIR tap extraction — demodulator_tpu.ops.fir probes these routines with
      impulses to derive the exact equivalent linear operator of the

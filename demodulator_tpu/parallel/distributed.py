@@ -2,12 +2,12 @@
 
 The reference has no distributed backend at all (no MPI/NCCL anywhere in
 its tree — SURVEY.md §2.10); this framework's communication layer is XLA
-collectives over ICI within a slice and DCN across hosts, reached through
-one process per host and a global device mesh:
+collectives (NCCL over NVLink between the GPUs of one host, the network
+across hosts), reached through a global device mesh.  One process can
+drive every card of a host; several processes join one mesh like this:
 
-    1. every process calls :func:`init_distributed` first (TPU pods
-       auto-detect all arguments from the environment; explicit
-       coordinator/process counts cover CPU/GPU clusters and tests);
+    1. every process calls :func:`init_distributed` first with the
+       coordinator address, process count and its own process id;
     2. :func:`demodulator_tpu.parallel.mesh.make_demod_mesh` then spans
        *all* processes' devices (``jax.devices()`` is global after init);
     3. each host turns the bytes it read locally into its shards of the
@@ -15,7 +15,7 @@ one process per host and a global device mesh:
        :func:`replicated_chunk`;
     4. ``ShardedPipeline`` runs the same SPMD step as single-host — XLA
        routes the correctIq all_gather / continuous-mode ppermute halos
-       over ICI/DCN automatically.
+       between the devices automatically.
 
 Deployment note: for the time-sharded single-stream case each host should
 read only its own slice of the capture (block index range
@@ -42,10 +42,13 @@ def init_distributed(coordinator_address: str | None = None,
                      local_device_ids=None) -> None:
     """Initialize JAX's multi-process runtime (idempotent).
 
-    On TPU pod slices all arguments are auto-detected — call with no
-    arguments.  Elsewhere (CPU/GPU clusters, tests) pass them explicitly
-    or through the environment: ``DEMODULATOR_TPU_COORDINATOR``,
-    ``DEMODULATOR_TPU_NUM_PROCESSES``, ``DEMODULATOR_TPU_PROCESS_ID``.
+    Pass the coordinator address (``host:port``), process count and this
+    process's id explicitly or through the environment:
+    ``DEMODULATOR_TPU_COORDINATOR``, ``DEMODULATOR_TPU_NUM_PROCESSES``,
+    ``DEMODULATOR_TPU_PROCESS_ID``; nothing is auto-detected on a GPU
+    host.  ``local_device_ids`` pins this process to some of the host's
+    cards (one process per card: a JAX process reserves most of the
+    memory of every card it opens).
     """
     # idempotency probe must not touch the XLA backend (jax.process_count()
     # would initialize it and make distributed init impossible)

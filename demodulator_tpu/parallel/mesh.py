@@ -9,9 +9,10 @@ Two mesh axes map the workload's parallelism (SURVEY.md §2.10):
     reference zeroes filter state per block — SURVEY.md §1 fact 3); the
     continuous profile exchanges anti-causal FIR halos via ppermute.
 
-Multi-host: call jax.distributed.initialize() before make_demod_mesh; the
-mesh spans all processes' devices and XLA routes collectives over ICI
-within a slice / DCN across hosts.
+Multi-process: call jax.distributed.initialize() before make_demod_mesh;
+the mesh spans all processes' devices.  The mesh follows the algorithm
+alone: the GPUs of one host are joined all to all by NVLink, so no device
+order is better than another.
 """
 from __future__ import annotations
 

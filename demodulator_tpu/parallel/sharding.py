@@ -21,9 +21,6 @@ continuous profile (extension; BASELINE config 3)
 """
 from __future__ import annotations
 
-import functools
-from typing import NamedTuple
-
 import jax
 import jax.numpy as jnp
 from jax.sharding import PartitionSpec as P
@@ -111,49 +108,9 @@ class ShardedPipeline:
                       P(CHAN_AXIS, None), P(None)),
             out_specs=(P(CHAN_AXIS, None), P(CHAN_AXIS, TIME_AXIS, None)),
             check_vma=False)) if self.continuous else None
-        self._fused_steps: dict = {}  # call_u32 shard_maps, keyed interpret
 
     def __call__(self, off0: jax.Array, raw: jax.Array):
         return self._step(off0, raw)
-
-    # ---- fused-kernel SPMD entry (flagship compat configs) -------------
-    def fused_u32_ok(self) -> bool:
-        """True when the compat chunk step can run the fused Pallas kernel
-        per shard: stateless conditioning (q0/q3 — q1's DC tracker needs the
-        cross-shard affine chain, q2 the DC-block FIR) and the 3-D
-        zero-copy geometry.  Blocks are embarrassingly parallel here
-        (SURVEY.md §1 fact 3), so the shard-local work is exactly the
-        single-chip fused path — zero communication."""
-        return (not self.continuous
-                and self.cfg.conditioning_kind() in (0, 3)
-                and self.pipe._use_fused_3d_ok())
-
-    def call_u32(self, off0: jax.Array, u32: jax.Array,
-                 interpret: bool = False):
-        """Zero-copy fused chunk step: u32 uint32 [C, NB, rows, 128] (the
-        raw chunk host-viewed — see fused_nbfm_u32_3d), sharded
-        P(chan, time, None, None); returns (off0 unchanged, audio float32
-        of the same shape — its row-major bytes ARE the flat audio)."""
-        assert self.fused_u32_ok()
-        key = bool(interpret)
-        fn = self._fused_steps.get(key)
-        if fn is None:
-            def local(off0, u32_l):
-                C, NB = u32_l.shape[0], u32_l.shape[1]
-                flat = u32_l.reshape(C * NB, *u32_l.shape[2:])
-                st = self.pipe.init_state()   # q0/q3: stateless
-                _, audio = self.pipe.fused_call_u32_3d(st, flat,
-                                                       interpret=key)
-                return off0, audio.reshape(u32_l.shape)
-            fn = jax.jit(shard_map(
-                local, mesh=self.mesh,
-                in_specs=(P(CHAN_AXIS, None),
-                          P(CHAN_AXIS, TIME_AXIS, None, None)),
-                out_specs=(P(CHAN_AXIS, None),
-                           P(CHAN_AXIS, TIME_AXIS, None, None)),
-                check_vma=False))
-            self._fused_steps[key] = fn
-        return fn(off0, u32)
 
     def step_continuous(self, off0: jax.Array, raw: jax.Array,
                         next_blk: jax.Array, has_next: jax.Array):

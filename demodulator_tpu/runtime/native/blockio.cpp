@@ -1,6 +1,6 @@
 // Native block IO runtime: double-buffered producer thread + bounded ring.
 //
-// TPU-native equivalent of the reference's producer half (src/main.c:58-98):
+// Equivalent of the reference's producer half (src/main.c:58-98):
 // where the reference pairs one pthread with a depth-1 semaphore ping-pong
 // buffer, this runtime keeps a reader thread filling a depth-N ring of
 // page-aligned block buffers so host NVMe/pipe reads overlap both the

@@ -104,9 +104,8 @@ def test_call_split_matches_call(C, P):
     reduction order differs, so ~1-ulp tolerance) and carry the same
     history.  Odd P exercises the even-parity extra frame + left pad.
 
-    __call__'s einsums run at default matmul precision (bf16 operands on
-    TPU), so the context pins them to HIGHEST for a backend-independent
-    comparison against call_split's explicit Precision.HIGH."""
+    The context pins default-precision dots to HIGHEST for a
+    backend-independent comparison."""
     import jax
     import jax.numpy as jnp
     from demodulator_tpu.ops.channelizer import PolyphaseChannelizer
@@ -152,7 +151,7 @@ def test_call_split_streaming_continuity():
 
 
 def test_call_split_vpu_matches_call_split():
-    """call_split_vpu (C=64: VPU branch filter + single DFT einsum,
+    """call_split_vpu (C=64: elementwise branch filter + single DFT einsum,
     flips folded into host constants) == call_split, planes and
     history, plus streaming continuity over 3 blocks."""
     import jax.numpy as jnp
@@ -176,3 +175,31 @@ def test_call_split_vpu_matches_call_split():
         np.testing.assert_allclose(got, np.asarray(want[k]),
                                    rtol=1e-4, atol=2e-3)
     np.testing.assert_array_equal(np.asarray(hv), np.asarray(want[4]))
+
+
+@pytest.mark.parametrize("C", [4, 8, 16, 32, 64])
+def test_call_split_streaming_matches_float64_call(C):
+    """call_split (float32, fed block by block with its carried history)
+    against __call__ in float64 on the whole stream: the folded einsums
+    keep the float32 front within ~1e-6 of the exact channelizer."""
+    import jax.numpy as jnp
+    from tests.conftest import snr_db
+    rng = np.random.default_rng(C)
+    T = 2 * C * 24
+    x = rng.integers(-128, 128, size=(2, 3 * T)).astype(np.float32)
+    ref = PolyphaseChannelizer(C, dtype=jnp.float64)
+    y64, _ = ref(jnp.asarray(x, jnp.float64), ref.init_hist())
+    y64 = np.asarray(y64)                       # [C, 2, 3T/C]
+    want = (y64[:, 0, 0::2].T, y64[:, 1, 0::2].T,
+            y64[:, 0, 1::2].T, y64[:, 1, 1::2].T)
+    pfb = PolyphaseChannelizer(C)
+    h = pfb.init_hist()
+    parts = [[] for _ in range(4)]
+    for b in range(3):
+        out = pfb.call_split(jnp.asarray(x[:, b * T:(b + 1) * T]), h)
+        h = out[4]
+        for k in range(4):
+            parts[k].append(np.asarray(out[k]))
+    for k in range(4):
+        got = np.concatenate(parts[k], axis=0)
+        assert snr_db(want[k], got) > 110.0, (k, snr_db(want[k], got))

@@ -1,4 +1,4 @@
-"""TPU-pipeline validation: jitted BlockPipeline vs the numpy golden model.
+"""Pipeline validation: jitted BlockPipeline vs the numpy golden model.
 
 The acceptance bar is >=60 dB SNR vs the C reference (BASELINE.md); the
 FIR-reformulated pipeline lands at 120-145 dB vs the golden model (which is

@@ -4,7 +4,7 @@ The NBFM core is validated against the C reference binary; the extensions
 (resampler, channelizer, WBFM chain) previously had only self-referential
 tone/continuity tests.  These tests pin them against scipy.signal — an
 implementation that shares no code or math structure with ours (our ops are
-banded-Toeplitz / framed MXU matmuls; scipy's are direct polyphase loops):
+banded-Toeplitz / framed matmuls; scipy's are direct polyphase loops):
 
   * application:  PolyResampler (both the L==1 banded-matmul path and the
     general dilated-conv path) and PolyphaseChannelizer vs

@@ -45,9 +45,8 @@ def test_chunked_matches_per_block(q, nblocks):
     a, b = _run(cfg, data, 4), _run(cfg, data, 1)
     if q == "1" and nblocks > 4:
         # q1 composes the affine DC-tracker prefix over the chunk's block
-        # axis on BOTH backends (the production fused kernel is the
-        # two-pass prefix design, fused_nbfm_q1_twopass_u32_3d) — a
-        # different f32 association order than sequential per-block
+        # axis (BlockPipeline.process_blocks) — a different f32
+        # association order than sequential per-block
         # updates, so cross-chunk state agrees to fp tolerance, not
         # bit-for-bit
         np.testing.assert_allclose(np.frombuffer(a, np.float32),

@@ -166,9 +166,7 @@ def test_framed_and_fallback_paths_agree():
 def test_split2_decimator_accuracy():
     """The 2-pass operand-split channel decimator (bf16 signal exact,
     taps hi+lo — PolyResampler precision="split2_bf16") stays within
-    ~1e-5 of the 6-pass HIGHEST chain: audio SNR >= 90 dB on an FM
-    fixture.  v5e: 6 -> 2 MXU passes took the chain 193 -> 99 us/block
-    (docs/PERF_EXTENSIONS.md r5)."""
+    ~1e-5 of the HIGHEST chain: audio SNR >= 90 dB on an FM fixture."""
     import jax
     cfg = WbfmConfig(sample_rate=240000.0, block_seconds=0.1)
     pipe_s = WbfmPipeline(cfg)
